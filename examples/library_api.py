@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Library-API walkthrough: everything the CLI does, as Python calls.
 
-Run: python examples/library_api.py          (CPU, tiny test parameters)
+Run: JAX_PLATFORMS=cpu python examples/library_api.py   (CPU, tiny test
+parameters; without JAX_PLATFORMS it runs on JAX's default device, the GPU)
 
 Covers the client/server split explicitly:
   client: keygen, encrypt inputs, decrypt outputs
@@ -13,10 +14,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import jax
-
-jax.config.update("jax_platforms", "cpu")  # demo on CPU; drop for TPU
 
 import numpy as np  # noqa: E402
 
@@ -30,9 +27,9 @@ from helm_tpu.engines.boolean import BooleanEngine  # noqa: E402
 def gates_mode():
     """Boolean circuit: one gate bootstrap per gate, one launch per level."""
     nl = read_verilog_file("benchmarks/netlists/2-bit-adder.v")
-    # production: params=None -> GATES_128_K3 (≥100-bit core-SVP; add
-    # backend="mxu" for the fused kernel). Weak reference-mirroring sets
-    # (P.GATES_PARAMS etc.) print a security warning when selected.
+    # production: params=None -> GATES_128_K3 (≥100-bit core-SVP). Weak
+    # reference-mirroring sets (P.GATES_PARAMS etc.) print a security
+    # warning when selected.
     engine = BooleanEngine(mode="gates", params=P.TEST_PARAMS, seed=7)
     engine.compile(nl)
 

@@ -1,4 +1,4 @@
-"""helm_tpu — TPU-native TFHE circuit evaluation (HELM-capable framework).
+"""helm_tpu — TFHE circuit evaluation in JAX (HELM-capable framework).
 
 See DESIGN.md for architecture and SURVEY.md for the reference contract.
 

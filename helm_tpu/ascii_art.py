@@ -5,7 +5,7 @@ BANNER = r"""
  | || | __| |  |  \/  |___|_   _| _ \ | | |
  | __ | _|| |__| |\/| |___| | | |  _/ |_| |
  |_||_|___|____|_|  |_|     |_| |_|  \___/
-   encrypted circuit evaluation on TPUs
+   encrypted circuit evaluation through gates and lookups
 """
 
 

@@ -3,8 +3,8 @@
 Reference: src/bin/helm.rs (mode driver) and src/lib.rs:196-285 (arg spec):
   -v/--verilog FILE, -w/--input-wires W V [WIDTH]..., -i/--input-wires-file,
   -o/--output-wires-file, -c/--cycles N, -a/--arithmetic TYPE, -p/--verbose.
-`--tpu` replaces the reference's `--gpu` (here every mode runs on the
-accelerator; the flag is accepted for parity and ignored).
+`--gpu`/`-g` is accepted for parity with the reference and ignored: every
+mode runs on JAX's default device.
 
 Mode selection (helm.rs:67-131): --arithmetic => arith; netlist contains
 `lut` cells => LUTs; otherwise gates.
@@ -47,7 +47,7 @@ def get_input_wire_map(args, arithmetic_type: str) -> dict:
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="helm-tpu",
-        description="HELM-TPU: encrypted circuit evaluation through gates and lookups, on TPUs",
+        description="encrypted circuit evaluation through gates and lookups",
     )
     ap.add_argument("-v", "--verilog", required=True, metavar="FILE")
     ap.add_argument(
@@ -74,8 +74,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("-c", "--cycles", type=int, default=1, metavar="NUMBER")
     ap.add_argument("-p", "--verbose", action="store_true")
     ap.add_argument(
-        "--tpu", "--gpu", "-g", action="store_true",
-        help="(accepted for parity with the reference's --gpu; always on)",
+        "--gpu", "-g", action="store_true",
+        help="(accepted for parity with the reference; JAX's default "
+        "device is always used)",
     )
     ap.add_argument(
         "--test-params",
@@ -84,17 +85,10 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     ap.add_argument("--seed", type=int, default=None, help="key RNG seed")
     ap.add_argument(
-        "--backend",
-        choices=["jnp", "pallas", "mxu"],
-        default="jnp",
-        help="PBS kernel: jnp (XLA, shardable), pallas (fused roll-NTT), "
-        "mxu (fused 4-step MXU NTT; fastest single-chip)",
-    )
-    ap.add_argument(
         "--params",
         metavar="NAME",
         help="named parameter set (see helm_tpu.params.ALL_PARAMS), e.g. "
-        "gates_tpu_v32 or gates_tpu_mb2 (multi-bit)",
+        "gates_128_k3 (the gates default) or lut_128_mb2",
     )
     ap.add_argument(
         "--profile",
@@ -168,6 +162,10 @@ def main(argv=None) -> int:
         from .parallel.distributed import init_multihost, parse_multihost_flag
 
         init_multihost(*parse_multihost_flag(args.multihost))
+    from .device import describe
+
+    dev = describe()
+    print(f"[✓] Device: {dev['platform']} {dev['kind']} x{dev['count']}")
 
     if args.arithmetic and args.cycles > 1:
         raise SystemExit(
@@ -230,7 +228,6 @@ def _run_boolean(args, netlist) -> int:
         mode=mode,
         params=params,
         seed=args.seed,
-        backend=args.backend,
         fuse_levels=args.fuse_levels,
         keys=_maybe_load_keys(
             args, params or (P.DEFAULT_GATES if mode == "gates" else P.DEFAULT_LUT)
@@ -242,14 +239,6 @@ def _run_boolean(args, netlist) -> int:
 
         shard_engine(engine, args.mesh)
     engine.compile(netlist)
-    if args.batch_input_files:
-        # tile-quantization check: efficient batches land just under a
-        # multiple of the kernel lane tile (helm_tpu/batching.py)
-        from .batching import check_batch
-
-        warn = check_batch(engine, len(args.batch_input_files))
-        if warn:
-            print(f"[!] {warn}")
 
     start = time.time()
     wires = engine.encrypt_inputs(input_wire_map)
@@ -339,14 +328,6 @@ def _run_arith(args, netlist) -> int:
             )
     else:
         params = P.TEST_PARAMS_ARITH if args.test_params else None
-    if args.backend != "jnp":
-        if args.mesh:
-            raise SystemExit("--mesh requires --backend jnp (shardable PBS)")
-        if args.backend != "mxu":
-            raise SystemExit("arithmetic mode supports --backend jnp or mxu")
-        from .engines import radix
-
-        radix.BACKEND[0] = "mxu"
     engine = ArithEngine(
         args.arithmetic,
         params=params,

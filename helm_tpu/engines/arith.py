@@ -8,7 +8,7 @@ circuit.rs:1330-1334). Combinational only, like the reference
 (src/bin/helm.rs:33-36).
 
 Per level, gates are grouped by op kind and each group executes as batched
-radix ops (engines/radix.py) — the TPU analog of the reference's
+radix ops (engines/radix.py) — the analog of the reference's
 per-gate-type grouping in its CUDA engine.
 
 Positional note: the reference always computes `ct OP pt` regardless of the
@@ -53,12 +53,6 @@ class ArithEngine:
             self.client_key = lwe.keygen(self.params, seed)
             sk = gen_server_key(self.client_key)
         self.dsk = pbs_jnp.DeviceServerKey.from_host(sk)
-        from .radix import BACKEND
-
-        if BACKEND[0] == "mxu":
-            # precompute the MXU BSK layout so jitted radix ops (e.g. the
-            # propagate loop) don't re-derive it on device every launch
-            self.dsk = self.dsk.with_mxu_keys()
         self.ops = RadixOps(self.params, self.dsk)
         self.plan = None
 

@@ -3,6 +3,9 @@
 The reference has no key or ciphertext persistence (SURVEY.md §5 —
 "every run does fresh keygen"); this framework adds explicit, unencrypted
 npz serialization so large-key production deployments can reuse keys.
+Files are stored uncompressed: the NTT-domain bootstrap key is close to
+random, so deflate saved about a quarter of the bytes at the cost of
+minutes per 128-bit key.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from .server_key import ServerKey
 
 
 def save_client_key(path: str, ck: ClientKey) -> None:
-    np.savez_compressed(
+    np.savez(
         path,
         kind="client",
         params=ck.params.name,
@@ -36,7 +39,7 @@ def load_client_key(path: str) -> ClientKey:
 def save_server_key(path: str, sk: ServerKey) -> None:
     from .modring import primes_for
 
-    np.savez_compressed(
+    np.savez(
         path,
         kind="server",
         params=sk.params.name,

@@ -27,14 +27,11 @@ import numpy as np
 #: Default prime set (supports negacyclic N <= 2048; all == 1 mod 4096).
 PRIMES = (12289, 40961, 61441, 65537)  # ascending; product ~ 2^59.8
 #: N <= 1024 set (all == 1 mod 2048 and <= 61441, so balanced residues fit
-#: two int8 limbs — required by the MXU matmul NTT path).
+#: two int8 limbs).
 PRIMES_1024 = (12289, 40961, 59393, 61441)  # product ~ 2^59.7
-#: N <= 512 set (all == 1 mod 1024), chosen SMALL on purpose: the fs
-#: kernel's f32 pointwise chains may accumulate floor(2^24/((p/2+1)*128))
-#: products before an exactness-forced Barrett reduction, so max_p = 18433
-#: gives chunk = 14 >= gadget_rows — ZERO mid-chain reductions — where the
-#: previous 61441 forced one every 4. Product 2^55.36 still exceeds the
-#: exact-convolution bound of every N<=512 set (asserted by
+#: N <= 512 set (all == 1 mod 1024), chosen small for a since-removed
+#: float32-accumulating kernel (ROADMAP.md design item 6). Product 2^55.36
+#: still exceeds the exact-convolution bound of every N<=512 set (asserted by
 #: params.TfheParams.conv_bound_log2 at keygen and pinned in
 #: tests/test_params_keys.py).
 PRIMES_512 = (12289, 13313, 15361, 18433)  # product ~ 2^55.36

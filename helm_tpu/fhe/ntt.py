@@ -3,8 +3,8 @@
 Backend-agnostic: every function takes an array namespace `xp` (numpy or
 jax.numpy). All arithmetic is uint32; every modular multiply is a Shoup
 multiply against a precomputed table (modring.py), so the same code is the
-correctness reference (numpy / jnp-CPU) and the TPU compute path (jnp under
-jit; the Pallas kernel mirrors these loops).
+correctness reference (numpy / jnp-CPU) and the accelerator compute path
+(jnp under jit).
 
 Shapes: data arrays are [..., NP, N] with the prime axis second-to-last so a
 stage reshape [..., NP, m, 2, t] stays contiguous. Forward = merged-psi

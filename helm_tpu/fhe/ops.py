@@ -2,8 +2,7 @@
 
 Gadget decomposition, negacyclic barrel rotation, mod-switch, sample extract.
 These are the building blocks of the batched PBS pipeline (DESIGN.md §3);
-the same code runs under numpy (host reference), jnp-CPU (tests), jnp-TPU,
-and is mirrored by the Pallas kernel.
+the same code runs under numpy (host reference) and jnp on any device.
 """
 
 from __future__ import annotations
@@ -51,8 +50,7 @@ def negacyclic_rotate(xp, x, r, N: int):
     """Multiply [..., N] polys by X^r, r uint32 in [0, 2N), batched.
 
     `r` must broadcast against x.shape[:-1]. Implemented as a barrel rotator
-    (log2(2N) static rolls + selects) — no data-dependent gathers, so it
-    vectorizes on the TPU VPU and inside Pallas.
+    (log2(2N) static rolls + selects) — no data-dependent gathers.
     """
     log2n = N.bit_length() - 1
     zero = xp.uint32(0)

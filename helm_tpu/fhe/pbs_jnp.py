@@ -1,15 +1,14 @@
 """Batched programmable bootstrapping — pure-jnp pipeline.
 
-One launch bootstraps G independent gates at once: this is the TPU-native
-generalization of the reference's per-level batching (rayon threads at
-circuit.rs:531; grouped CUDA vector launches at circuit.rs:650-934), with a
-single fused path instead of per-gate-type kernels — the gate type only
-changes the linear combination and (in LUT mode) the test polynomial.
+One launch bootstraps G independent gates at once: this generalizes the
+reference's per-level batching (rayon threads at circuit.rs:531; grouped
+CUDA vector launches at circuit.rs:650-934) with a single fused path
+instead of per-gate-type kernels — the gate type only changes the linear
+combination and (in LUT mode) the test polynomial.
 
-This module is the correctness reference and the CPU/multi-chip-dryrun
-implementation; ops/pallas_pbs.py implements the same math as a fused
-VMEM-resident kernel.  Both produce bit-identical results (exact integer
-arithmetic everywhere).
+This is the one PBS path of every mode, on every device: XLA compiles it
+for the GPU and the CPU alike. All arithmetic is exact integer arithmetic
+(u32, int8 and int32), so every device returns the same bits.
 """
 
 from __future__ import annotations
@@ -54,10 +53,6 @@ class DeviceServerKey:
     bsk_ntt: jax.Array  # u32 [n, rows, k+1, NP, N]
     bsk_ntt_sh: jax.Array
     ksk_limbs: jax.Array  # i8 [4, big_n*ks_level, n+1]
-    #: optional MXU-layout BSK pair (ops.mxu_pbs.mxu_server_key[_fs]); part
-    #: of the pytree so jitted callers see the precomputed layout instead of
-    #: re-deriving it from bsk_ntt on device at every launch
-    mxu_keys: tuple = None
 
     @staticmethod
     def from_host(sk: ServerKey) -> "DeviceServerKey":
@@ -69,38 +64,10 @@ class DeviceServerKey:
             ksk_limbs=jnp.asarray(sk.ksk_limbs),
         )
 
-    def with_mxu_keys(self) -> "DeviceServerKey":
-        """Attach the MXU kernel's BSK layout (computed once, device-side)."""
-        from ..ops import mxu_pbs
-
-        if self.params.grouping > 1:
-            from ..ops import ts_pbs
-
-            kn = ts_pbs.mb_kernel()
-            if kn == "hb2":
-                keys = (ts_pbs.mxu_server_key_hb2(self),)
-            elif kn in ("ts", "hb"):
-                keys = (ts_pbs.mxu_server_key_ts(self),)
-            elif kn == "fs16":
-                keys = (mxu_pbs.mxu_server_key_fs_i16(self),)
-            elif kn == "ps":
-                keys = (mxu_pbs.mxu_server_key_ps(self),)
-            else:
-                keys = (mxu_pbs.mxu_server_key_fs(self),)
-        else:
-            keys = mxu_pbs.mxu_server_key(self)
-        return DeviceServerKey(
-            self.params, self.tab, self.bsk_ntt, self.bsk_ntt_sh,
-            self.ksk_limbs, keys,
-        )
-
 
 jax.tree_util.register_pytree_node(
     DeviceServerKey,
-    lambda k: (
-        (k.bsk_ntt, k.bsk_ntt_sh, k.ksk_limbs, k.mxu_keys),
-        (k.params, k.tab),
-    ),
+    lambda k: ((k.bsk_ntt, k.bsk_ntt_sh, k.ksk_limbs), (k.params, k.tab)),
     lambda aux, ch: DeviceServerKey(aux[0], aux[1], *ch),
 )
 
@@ -258,7 +225,7 @@ def blind_rotate_multibit(
                 # E[r, c] = sum_{v>=1} P_v (.) BSK_v; the empty subset
                 # (GGSW of 1) is handled additively below — the
                 # additive-identity CMux form, so it is never keyed,
-                # loaded, or multiplied (see server_key.gen_bsk_multibit)
+                # loaded, or multiplied (see server_key.bsk_coefficients)
                 e = None
                 for v in range(1, 1 << g):
                     t = mul_shoup(
@@ -287,7 +254,10 @@ def ntt_sub_mod(a, b, p):
 
 
 def keyswitch(dsk: DeviceServerKey, big_lwe: jax.Array) -> jax.Array:
-    """Big-LWE [G, kN+1] -> small-LWE [G, n+1] via int8-limb MXU matmul."""
+    """Big-LWE [G, kN+1] -> small-LWE [G, n+1] via an int8-limb matmul.
+
+    Each int8 x int8 product accumulates in int32; the sums stay far below
+    2^31 (kN*ks_level terms of at most 128*128)."""
     p = dsk.params
     kn = p.big_n
     a, b = big_lwe[:, :kn], big_lwe[:, kn]

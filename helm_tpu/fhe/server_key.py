@@ -5,8 +5,8 @@ device forms:
 
 - BSK in the NTT/CRT domain with Shoup companions, laid out
   [n, (k+1)*l, k+1, NP, N] so one scan step slices all rows of GGSW_i.
-- KSK recoded into balanced int8 limbs [4, rows, n+1] feeding the MXU
-  int8 matmul keyswitch (DESIGN.md §3).
+- KSK recoded into balanced int8 limbs [4, rows, n+1] feeding the int8
+  matmul keyswitch (DESIGN.md §3).
 
 Counterpart of the reference's per-mode keygen (src/bin/helm.rs:88,160-192,
 241,301); unlike the reference, keys are arrays, not opaque library objects.
@@ -34,7 +34,7 @@ def _keygen_cpu_jit(N: int):
     single-threaded and dominates multi-bit keygen (~8 min at n=512,
     grouping=2). The ntt module is backend-agnostic, so the same exact
     integer pipeline runs ~20x faster as jitted jnp on the CPU backend
-    (never the TPU: jax.default_device pins the local CPU compiler).
+    (never the accelerator: jax.default_device pins the local CPU).
     Returns (fwd, body) callables operating on/returning numpy arrays.
     """
     import jax
@@ -92,11 +92,17 @@ def _glwe_enc_zero_batch(ck: ClientKey, rows: int) -> np.ndarray:
     return np.concatenate([a, body[:, None, :]], axis=1)
 
 
-def gen_bsk(ck: ClientKey) -> tuple[np.ndarray, np.ndarray]:
-    """GGSW encryptions of each small-key bit, in NTT domain (+Shoup)."""
+def bsk_coefficients(ck: ClientKey) -> np.ndarray:
+    """The bootstrap key's GGSW rows in the coefficient domain (uint32).
+
+    Single-bit: [n, rows, k+1, N], a GGSW encryption of each small-key
+    bit. Multi-bit (grouping g > 1): [n/g, 2^g-1, rows, k+1, N], see
+    gen_bsk_multibit. gen_server_key transforms these rows to the NTT
+    domain; the coefficient form is what a schoolbook reference needs."""
     _check_conv_bound(ck.params)
+    if ck.params.grouping > 1:
+        return _bsk_multibit_coefficients(ck)
     p = ck.params
-    tab = get_tables(p.N)
     kp1 = p.k + 1
     rows_per = p.gadget_rows
     raw = _glwe_enc_zero_batch(ck, p.n * rows_per).reshape(
@@ -110,10 +116,14 @@ def gen_bsk(ck: ClientKey) -> tuple[np.ndarray, np.ndarray]:
         for j in range(lv):
             raw[:, r, c, 0] += ck.lwe_key * np.uint32(1 << (32 - bl * (j + 1)))
             r += 1
-    fwd, _ = _keygen_cpu_jit(p.N)
+    return raw
+
+
+def _to_ntt(raw: np.ndarray, N: int) -> tuple[np.ndarray, np.ndarray]:
+    """Coefficient rows -> NTT/CRT residues [..., NP, N] + Shoup companions."""
+    fwd, _ = _keygen_cpu_jit(N)
     bsk_ntt = fwd(raw)
-    # move prime axis: to_residues gives [..., NP, N] -> already [n,rows,kp1,NP,N]
-    primes = tab.primes.reshape(NUM_PRIMES, 1).astype(np.uint64)
+    primes = get_tables(N).primes.reshape(NUM_PRIMES, 1).astype(np.uint64)
     sh = ((bsk_ntt.astype(np.uint64) << 16) // primes).astype(np.uint32)
     return bsk_ntt, sh
 
@@ -150,28 +160,23 @@ def gen_ksk(ck: ClientKey) -> np.ndarray:
     return _balanced_limbs(ksk)
 
 
-def gen_bsk_multibit(ck: ClientKey) -> tuple[np.ndarray, np.ndarray]:
+def _bsk_multibit_coefficients(ck: ClientKey) -> np.ndarray:
     """Grouped bootstrap key for multi-bit PBS (params.grouping = g > 1).
 
     For each group j of g secret bits and each NONEMPTY subset mask
     v in [1, 2^g), a GGSW encryption of prod_{i in v} s_{jg+i} (analog of
     tfhe-rs's multi-bit BSK; the reference's arith mode uses GROUP_3
     parameters, src/bin/helm.rs:81-88). The empty subset (GGSW of 1) is
-    NOT keyed: the kernels use the additive-identity CMux form
+    NOT keyed: the PBS uses the additive-identity CMux form
     acc += dec(acc) (.) sum_{v>=1} P_v BSK_v, so the v=0 external product
     — 25%% of the pointwise terms, BSK loads, and key bytes at g=2 —
     never happens (and contributes no noise, matching the noise model's
-    (3^g-1)/(2g) multiplier exactly). Shape [n/g, 2^g-1, rows, k+1, NP, N].
+    (3^g-1)/(2g) multiplier exactly). Shape [n/g, 2^g-1, rows, k+1, N].
     """
-    _check_conv_bound(ck.params)
     p = ck.params
     g = p.grouping
-    # g == 1 is the degenerate case: one subset, m_1 = s_i — the same key
-    # material as gen_bsk in the grouped layout, letting grouping-1 sets
-    # ride the fs kernel's additive-identity CMux (tools/g1_fs_test.py)
     assert g >= 1 and p.n % g == 0, (g, p.n)
     groups = p.n // g
-    tab = get_tables(p.N)
     kp1 = p.k + 1
     rows_per = p.gadget_rows
     nv = 1 << g
@@ -193,11 +198,7 @@ def gen_bsk_multibit(ck: ClientKey) -> tuple[np.ndarray, np.ndarray]:
                     1 << (32 - bl * (j + 1))
                 )
                 r += 1
-    fwd, _ = _keygen_cpu_jit(p.N)
-    bsk_ntt = fwd(raw)
-    primes = tab.primes.reshape(NUM_PRIMES, 1).astype(np.uint64)
-    sh = ((bsk_ntt.astype(np.uint64) << 16) // primes).astype(np.uint32)
-    return bsk_ntt, sh
+    return raw
 
 
 def _check_conv_bound(p: TfheParams) -> None:
@@ -214,8 +215,5 @@ def _check_conv_bound(p: TfheParams) -> None:
 
 
 def gen_server_key(ck: ClientKey) -> ServerKey:
-    if ck.params.grouping > 1:
-        bsk_ntt, bsk_sh = gen_bsk_multibit(ck)
-    else:
-        bsk_ntt, bsk_sh = gen_bsk(ck)
+    bsk_ntt, bsk_sh = _to_ntt(bsk_coefficients(ck), ck.params.N)
     return ServerKey(ck.params, bsk_ntt, bsk_sh, gen_ksk(ck))

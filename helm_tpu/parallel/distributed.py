@@ -1,12 +1,13 @@
-"""Multi-host bring-up over DCN.
+"""Multi-host bring-up.
 
 The reference is single-host shared-memory only (rayon; SURVEY.md §2
 "parallelism strategies"). Here the same SPMD program that shards gate
-batches across one host's chips (parallel/mesh.py) runs across hosts: one
-JAX process per host, `jax.distributed.initialize` over DCN, and the mesh
-simply spans all global devices — XLA routes the per-level collectives
-(replicated-key broadcast, sharded-batch gather at wire scatter) over ICI
-within a slice and DCN across slices.
+batches across one host's GPUs (parallel/mesh.py) runs across hosts: one
+JAX process per host, `jax.distributed.initialize` with an explicit
+coordinator, and the mesh simply spans all global devices — XLA routes the
+per-level collectives (replicated-key broadcast, sharded-batch gather at
+wire scatter) over the interconnect within a host and the network across
+hosts.
 
 Usage (per host):
 
@@ -34,7 +35,7 @@ def init_multihost(
 ) -> None:
     """Initialize this process's slice of the multi-host runtime.
 
-    coordinator: "host:port" of process 0, reachable over DCN.
+    coordinator: "host:port" of process 0, reachable from every host.
     Safe to call once per process, before any other JAX call.
     """
     jax.distributed.initialize(

@@ -4,12 +4,14 @@ The reference parallelizes a level across rayon threads on one host
 (circuit.rs:531); the scaling axis here is the PBS batch: gates of each
 level are sharded across a 1-D device mesh ("gates" axis), keys replicated,
 and XLA's SPMD partitioner inserts the (small) collectives when sharded
-bootstrap outputs scatter back into the replicated wire state. Multi-host
-runs use the same program under jax.distributed over DCN; ICI carries the
-per-level boundary exchange.
+bootstrap outputs scatter back into the replicated wire state. Between the
+GPUs of one host that exchange runs over NVLink, all to all, so the mesh
+needs no topology shaping; multi-host runs use the same program under
+jax.distributed.
 
-Tested on a virtual 8-device CPU mesh (tests/test_sharding.py) and by
-__graft_entry__.dryrun_multichip.
+Tested on a virtual 8-device CPU mesh (tests/test_sharding.py), by
+__graft_entry__.dryrun_multichip, and on four H100s by
+`python chip_smoke.py --four-cards`.
 """
 
 from __future__ import annotations
@@ -46,8 +48,8 @@ def shard_engine(engine, n_devices: int | None = None) -> Mesh:
 def gather_host(wires, repl_shard) -> np.ndarray:
     """Materialize device wire state host-side. Under multi-process
     (multi-host) meshes evaluation can leave `wires` sharded across
-    non-addressable devices; re-replicate first (an all-gather over
-    ICI/DCN) so every controller sees every wire."""
+    non-addressable devices; re-replicate first (an all-gather) so every
+    controller sees every wire."""
     if (
         isinstance(wires, jax.Array)
         and not wires.is_fully_addressable

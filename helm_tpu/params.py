@@ -1,8 +1,8 @@
-"""TFHE parameter sets for the TPU engine (q = 2^32 everywhere).
+"""TFHE parameter sets (q = 2^32 everywhere).
 
 The reference hard-codes parameters per mode (reference: src/bin/helm.rs:81-88
 arith, :141-146 GPU gates, :241 CPU gates, :301 LUTs). We do the same but all
-sets live over q = 2^32 (uint32, the TPU-native word) and carry an explicit
+sets live over q = 2^32 (uint32 words) and carry an explicit
 noise model so tests can assert decryption margins.
 
 Security note: the gates-mode set mirrors the reference's GPU engine
@@ -130,13 +130,13 @@ class TfheParams:
         sum_v P_v (.) BSK_v over the 2^g-1 nonempty subsets, P_v =
         prod_{i in v}(X^{a_i}-1) with squared 2-norm 2^|v|. Unlike the
         single-bit path, the kernels decompose the BARE accumulator and
-        apply P_v AFTER the gadget product (the NTT-domain pva multiply in
-        ops/mxu_pbs.py / pbs_jnp.blind_rotate_multibit), so each subset's
+        apply P_v AFTER the gadget product (the NTT-domain multiply in
+        pbs_jnp.blind_rotate_multibit), so each subset's
         noise term carries its full ||P_v||_2^2: per-step scale
         sum_j C(g,j) 2^j = 3^g - 1, total multiplier (3^g - 1)/g vs
         single-bit. (An earlier revision normalized this by the g=1 norm
         factor 2 that the g=1 form does not actually pay; the 2^20-sample
-        on-chip measurement at GATES_128_K3 — SECURITY.md noise validation,
+        noise measurement at GATES_128_K3 — SECURITY.md noise validation,
         2026-08-20 — pinned the corrected scale.) The rounding tail is one
         acc decomposition per step, so it shrinks by g.
 
@@ -465,7 +465,7 @@ TEST_NOISY_ARITH = TfheParams(
     grouping=2,
 )
 
-#: TPU-tuned gates set: level 2 with a wider base cuts the per-iteration
+#: Gates set with level 2 and a wider base: cuts the per-iteration
 #: transform count from 8 to 6 at the same failure rate (needs the quieter
 #: BSK sigma=8; ~29-bit modulus-to-noise gap at N=1024 — see SECURITY.md).
 GATES_TPU = TfheParams(
@@ -501,7 +501,7 @@ GATES_MB2 = TfheParams(
     grouping=2,
 )
 
-#: TPU-tuned multi-bit gates set: GATES_TPU with grouping 2. Halves the
+#: Multi-bit gates set: GATES_TPU with grouping 2. Halves the
 #: blind-rotation steps; the grouped external product multiplies the BSK
 #: noise variance by ~||P_v||^2 ~ 9 over n/2 steps (net ~4.5x), which the
 #: quiet sigma=8 BSK absorbs: per-PBS failure ~2^-30.6 at XOR linear growth
@@ -545,8 +545,8 @@ GATES_TPU_MB4 = TfheParams(
 
 #: Multi-bit arithmetic set: ARITH_PARAMS with grouping 2 (the reference's
 #: arith mode is also multi-bit — PARAM_MULTI_BIT_MESSAGE_2_CARRY_2_GROUP_3,
-#: src/bin/helm.rs:81-88). Halves the blind-rotation steps (620 -> 310) and
-#: rides the frequency-in-sublanes MXU kernel; the (3^g-1)/(2g) = 2x grouped
+#: src/bin/helm.rs:81-88). Halves the blind-rotation steps (620 -> 310);
+#: the (3^g-1)/(2g) = 2x grouped
 #: noise multiplier keeps per-PBS failure at 2^-49.3 with linear growth 17
 #: (bivariate 4x+y packing) — same margin as the single-bit set (2^-49.9).
 ARITH_TPU_MB2 = TfheParams(
@@ -612,11 +612,10 @@ GATES_128_MB2 = TfheParams(
 )
 
 #: 128-bit-class gates set, k=3/N=512 GLWE (the tfhe-rs 0.4 boolean
-#: DEFAULT_PARAMETERS shape — reference L0 via Cargo.toml:18 — re-tuned for
-#: this kernel with tools/param_search.py under the in-repo core-SVP
-#: estimator and noise model). Same 1536-dim GLWE security as k=1/N=2048
-#: at 1/4 the transform area per external-product row; the fs kernel's
-#: per-step cost model scores it 1.84x cheaper than GATES_128_MB2.
+#: DEFAULT_PARAMETERS shape — reference L0 via Cargo.toml:18 — re-tuned
+#: under the in-repo core-SVP estimator and noise model). Same 1536-dim
+#: GLWE security as k=1/N=2048 at 1/4 the transform area per
+#: external-product row.
 #: Security: LWE n=704/sigma=2^16 -> 104.8-bit core-SVP (the same margin
 #: the maintained lattice-estimator default scores ~128 for tfhe-rs's
 #: n=742 key); GLWE kN=1536/sigma=4 -> 135.5-bit. Failure 2^-37.3 at XOR
@@ -680,11 +679,9 @@ ARITH_128_MB2 = TfheParams(
 )
 
 #: 128-bit-class LUT set, k=2/N=1024 GLWE — the gates_128_k3 trick applied
-#: to LUT mode (tools/param_search.py msg_space-4 variant under the
-#: measurement-corrected noise model + measured round-3 kernel cost split):
+#: to LUT mode (msg_space 4, under the measurement-corrected noise model):
 #: same 2048-dim GLWE security as k=1/N=2048 at half the per-row transform
-#: area, and it dodges the measured ~1.35x N=2048 VMEM penalty — modeled
-#: 0.75x the cost of LUT_128_MB2. Security: LWE n=770/sigma=19639 ->
+#: area. Security: LWE n=770/sigma=19639 ->
 #: 104.2-bit core-SVP; GLWE kN=2048/sigma=4 -> 197-bit. Failure 2^-32.6 at
 #: the 3-input pack growth 21 (better margin than LUT_128_MB2's 2^-31.2).
 LUT_128_K2 = TfheParams(

@@ -6,8 +6,8 @@ launch is `batch`x wider, amortizing the per-launch blind-rotation latency
 floor. This daemon packages it as a service:
 
     python -m helm_tpu.serve --verilog circuit.v --watch in/ --outdir out/ \
-        [--arithmetic u32] [--params gates_tpu_mb2] [--backend mxu] \
-        [--keys keysdir] [--batch 16] [--linger 0.5] [--max-batches N]
+        [--arithmetic u32] [--params gates_128_k3] [--keys keysdir] \
+        [--batch 16] [--linger 0.5] [--max-batches N]
 
 Each `*.csv` file appearing in the watch directory is one input-wire
 vector (the reference's input CSV format). Vectors are collected into
@@ -40,18 +40,11 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     ap.add_argument("--params", metavar="NAME")
     ap.add_argument("--test-params", action="store_true")
-    ap.add_argument("--backend", choices=["jnp", "pallas", "mxu"], default="jnp")
     ap.add_argument("--keys", metavar="DIR", help="persist keys (fhe/keys.py)")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument(
-        "--batch", default="8",
-        help="vectors per evaluation (fixed shape -> one compile), or"
-        " 'auto' to pick a tile-quantization-efficient batch from the"
-        " compiled level profile (helm_tpu/batching.py)",
-    )
-    ap.add_argument(
-        "--max-batch", type=int, default=16,
-        help="upper bound for --batch auto",
+        "--batch", type=int, default=8,
+        help="vectors per evaluation (fixed shape -> one compile)",
     )
     ap.add_argument(
         "--linger", type=float, default=0.5,
@@ -67,9 +60,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--supervise", action="store_true",
         help="run the serving loop in a child process and restart it when"
-        " the backend kills it (TPU-worker aborts); inputs are only moved"
-        " to done/ after their outputs are written, so a restart resumes"
-        " cleanly from the watch directory",
+        " it dies; inputs are only moved to done/ after their outputs are"
+        " written, so a restart resumes cleanly from the watch directory",
     )
     ap.add_argument(
         "--max-restarts", type=int, default=3,
@@ -114,11 +106,8 @@ def _make_engine(args, netlist):
         keys = load_or_generate(args.keys, params, args.seed)
 
     if args.arithmetic:
-        from .engines import radix
         from .engines.arith import ArithEngine
 
-        if args.backend == "mxu":
-            radix.BACKEND[0] = "mxu"
         return ArithEngine(
             args.arithmetic, params=params, seed=args.seed, keys=keys
         )
@@ -128,7 +117,6 @@ def _make_engine(args, netlist):
         mode="lut" if netlist.has_luts else "gates",
         params=params,
         seed=args.seed,
-        backend=args.backend,
         fuse_levels=args.fuse_levels,
         keys=keys,
     )
@@ -204,10 +192,11 @@ def _collect(
 
 def _supervise(argv: list[str]) -> int:
     """Restart-on-crash wrapper: run the serving loop as a child process
-    and restart it on abnormal exit. A TPU-worker abort takes the whole
-    feeding process with it (PERFORMANCE.md crash notes); the daemon
-    itself must outlive that. File-based batching makes restarts safe:
-    an input moves to done/ only after its output CSV is written."""
+    and restart it on abnormal exit. It was written for the TPU worker
+    this program first ran on, whose aborts took the feeding process with
+    them; no such abort is known on the GPU. File-based batching makes
+    restarts safe: an input moves to done/ only after its output CSV is
+    written."""
     import subprocess
 
     args = build_argparser().parse_args(argv)
@@ -245,18 +234,14 @@ def main(argv=None) -> int:
         argv = sys.argv[1:]
     if "--supervise" in argv:
         return _supervise(list(argv))
-    # deterministic backend selection for child processes / tests: this
-    # image's jax ignores JAX_PLATFORMS, so honor the legacy env var via
-    # the config knob before any device use
-    plat = os.environ.get("JAX_PLATFORM_NAME")
-    if plat:
-        import jax
-
-        jax.config.update("jax_platforms", plat)
     args = build_argparser().parse_args(argv)
     from .compile_cache import enable_compile_cache
+    from .device import describe
 
     enable_compile_cache()
+    dev = describe()
+    print(f"[serve] device: {dev['platform']} {dev['kind']} x{dev['count']}",
+          flush=True)
     from .circuit.verilog import read_verilog_file
     from .io import csv_io, native_loader
 
@@ -269,32 +254,6 @@ def main(argv=None) -> int:
     t0 = time.time()
     engine = _make_engine(args, netlist)
     engine.compile(netlist)
-
-    # batch-shape selection: dead tile lanes do full blind-rotation work,
-    # so pick (or vet) the batch against the compiled level profile
-    if str(args.batch) == "auto":
-        if hasattr(engine, "_scan_levels"):
-            from .batching import suggest_batch
-
-            batch, table = suggest_batch(engine, args.max_batch)
-            fill = next(t["fill"] for t in table if t["batch"] == batch)
-            print(
-                f"[serve] --batch auto -> {batch} ({fill:.0%} tile fill;"
-                f" candidates {[(t['batch'], t['fill']) for t in table]})",
-                flush=True,
-            )
-        else:  # arith engine: radix widths are bucket-padded internally
-            batch = min(8, args.max_batch)
-            print(f"[serve] --batch auto -> {batch} (arith mode)", flush=True)
-    else:
-        batch = int(args.batch)
-        if hasattr(engine, "_scan_levels"):
-            from .batching import check_batch
-
-            warn = check_batch(engine, batch, args.max_batch)
-            if warn:
-                print(f"[serve] WARNING: {warn}", flush=True)
-    args.batch = batch
 
     print(f"[serve] engine ready in {time.time() - t0:.1f}s "
           f"(batch={args.batch}, watching {args.watch})", flush=True)
@@ -382,7 +341,7 @@ def main(argv=None) -> int:
         batches += 1
         if args.crash_after and batches >= args.crash_after:
             # test hook for the --supervise restart path: die the hard way
-            # (same observable behavior as a TPU-worker abort)
+            # (the same observable behavior as a backend abort)
             print("[serve] crash-after hook firing", flush=True)
             os._exit(17)
         if args.max_batches and batches >= args.max_batches:

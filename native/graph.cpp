@@ -1,8 +1,8 @@
 // helm_tpu native graph builder: netlist parser + topological scheduler.
 //
 // C++ counterpart of the host-side graph layer (reference: Rust
-// src/verilog_parser.rs:138-276 and src/circuit.rs:122-239). The TPU compute
-// path is JAX/Pallas; this library owns the host runtime work that the
+// src/verilog_parser.rs:138-276 and src/circuit.rs:122-239). The device
+// compute path is JAX/XLA; this library owns the host runtime work that the
 // reference does in native code: parsing structural Verilog, Kahn wave
 // topological sorting, and levelization — O(gates) with hashed wire tables,
 // fast enough for multi-million-gate netlists where the Python fallback
@@ -17,7 +17,6 @@
 #include <cstring>
 #include <cstdlib>
 #include <fstream>
-#include <sstream>
 #include <string>
 #include <unordered_map>
 #include <unordered_set>
@@ -308,24 +307,28 @@ bool levelize(ParseResult& r, std::string* err) {
   return true;
 }
 
+// Plain string appends, no iostream number formatting: that crashes when a
+// toolchain links libstdc++ statically into this library (its locale
+// facets are never initialized).
 std::string serialize(const ParseResult& r) {
-  std::ostringstream o;
-  o << "OK\n";
-  o << "FLAGS " << (r.has_luts ? 1 : 0) << " " << (r.has_arith ? 1 : 0) << "\n";
-  o << "INPUTS";
-  for (const auto& w : r.inputs) o << " " << w;
-  o << "\nOUTPUTS";
-  for (const auto& w : r.outputs) o << " " << w;
-  o << "\nDFF";
-  for (const auto& w : r.dff_outputs) o << " " << w;
-  o << "\n";
+  std::string o = "OK\n";
+  o += std::string("FLAGS ") + (r.has_luts ? "1" : "0") + " " +
+       (r.has_arith ? "1" : "0") + "\n";
+  o += "INPUTS";
+  for (const auto& w : r.inputs) o += " " + w;
+  o += "\nOUTPUTS";
+  for (const auto& w : r.outputs) o += " " + w;
+  o += "\nDFF";
+  for (const auto& w : r.dff_outputs) o += " " + w;
+  o += "\n";
   for (const auto& g : r.gates) {
-    o << "G " << g.level << " " << g.type << " " << g.name << " " << g.output
-      << " " << g.lut_const << " " << g.inputs.size();
-    for (const auto& in : g.inputs) o << " " << in;
-    o << "\n";
+    o += "G " + std::to_string(g.level) + " " + g.type + " " + g.name + " " +
+         g.output + " " + std::to_string(g.lut_const) + " " +
+         std::to_string(g.inputs.size());
+    for (const auto& in : g.inputs) o += " " + in;
+    o += "\n";
   }
-  return o.str();
+  return o;
 }
 
 }  // namespace

@@ -3,8 +3,8 @@
 //
 // C++ counterpart of the host-side client I/O layer (reference: Rust
 // src/verilog_parser.rs:278-349 read_input_wires/write_output_wires and the
-// encrypt-inputs role of src/circuit.rs:450-480). The TPU compute path is
-// JAX/Pallas; this library owns the client-side runtime work for GIANT
+// encrypt-inputs role of src/circuit.rs:450-480). The device compute path
+// is JAX/XLA; this library owns the client-side runtime work for GIANT
 // batched-serving vector sets: parsing many CSV files and filling the
 // [M, n+1] ciphertext slab with all cores, streaming straight into a
 // caller-provided buffer (no per-row Python dispatch).
@@ -30,8 +30,6 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
-#include <fstream>
-#include <sstream>
 #include <string>
 #include <thread>
 #include <vector>
@@ -160,38 +158,59 @@ void helm_encrypt_lwe(const uint32_t* key, int n, const uint32_t* mu, long m,
 // `wire,hex,width` with little-endian bit expansion). Returns malloc'd
 // "name=value\n" text (value: 0/1 for bool, decimal otherwise), or NULL on
 // unreadable file. An optional first header row (wire/name/...) is skipped.
+// C stdio and std::string only: no iostreams, whose number formatting
+// crashes when a toolchain links libstdc++ statically into this library
+// and its locale facets are never initialized.
 char* helm_read_input_csv(const char* path, int is_bool) {
-  std::ifstream f(path);
-  if (!f.good()) return nullptr;
-  std::ostringstream outbuf;
-  std::string line;
+  FILE* f = std::fopen(path, "rb");
+  if (!f) return nullptr;
+  std::string text;
+  char chunk[1 << 16];
+  size_t got;
+  while ((got = std::fread(chunk, 1, sizeof chunk, f)) > 0) text.append(chunk, got);
+  std::fclose(f);
+  auto lower = [](std::string v) {
+    for (auto& ch : v) ch = (char)tolower((unsigned char)ch);
+    return v;
+  };
+  auto bit = [&](const std::string& v) {
+    std::string l = lower(v);
+    return (l == "1" || l == "true") ? "=1\n" : "=0\n";
+  };
+  std::string out;
   bool first = true;
-  while (std::getline(f, line)) {
+  size_t pos = 0;
+  while (pos < text.size()) {
+    size_t nl = text.find('\n', pos);
+    if (nl == std::string::npos) nl = text.size();
+    std::string line = text.substr(pos, nl - pos);
+    pos = nl + 1;
+    // split on ',' like std::getline: no field after a trailing comma
     std::vector<std::string> cols;
-    std::stringstream ss(line);
-    std::string c;
-    while (std::getline(ss, c, ',')) cols.push_back(strip(c));
+    size_t s = 0;
+    while (s < line.size()) {
+      size_t c = line.find(',', s);
+      if (c == std::string::npos) c = line.size();
+      cols.push_back(strip(line.substr(s, c - s)));
+      s = c + 1;
+    }
     if (cols.empty() || (cols.size() == 1 && cols[0].empty())) continue;
     if (first) {
       first = false;
-      std::string h = cols[0];
-      for (auto& ch : h) ch = (char)tolower((unsigned char)ch);
+      std::string h = lower(cols[0]);
       if (h == "wire" || h == "wire_name" || h == "name") continue;
     }
     if (cols.size() == 2) {
+      out += cols[0];
       if (is_bool) {
-        std::string v = cols[1];
-        for (auto& ch : v) ch = (char)tolower((unsigned char)ch);
-        outbuf << cols[0] << "=" << ((v == "1" || v == "true") ? 1 : 0) << "\n";
+        out += bit(cols[1]);
       } else {
-        outbuf << cols[0] << "=" << cols[1] << "\n";
+        out += "=" + cols[1] + "\n";
       }
     } else if (cols.size() == 3 && is_bool) {
       long width = strtol(cols[2].c_str(), nullptr, 10);
       if (width <= 1) {
-        std::string v = cols[1];
-        for (auto& ch : v) ch = (char)tolower((unsigned char)ch);
-        outbuf << cols[0] << "=" << ((v == "1" || v == "true") ? 1 : 0) << "\n";
+        out += cols[0] + bit(cols[1]);
         continue;
       }
       // hex -> bitstring (4 bits per digit, MSB first), then reverse-index
@@ -207,16 +226,15 @@ char* helm_read_input_csv(const char* path, int is_bool) {
       }
       std::string rev(bits.rbegin(), bits.rend());
       for (long idx = 0; idx < width; idx++) {
-        int bit = idx < (long)rev.size() && rev[(size_t)idx] == '1';
-        outbuf << cols[0] << "[" << idx << "]=" << bit << "\n";
+        bool one = idx < (long)rev.size() && rev[(size_t)idx] == '1';
+        out += cols[0] + "[" + std::to_string(idx) + (one ? "]=1\n" : "]=0\n");
       }
     } else {
       return nullptr;  // malformed row: mirror the Python ValueError
     }
   }
-  std::string s = outbuf.str();
-  char* ret = (char*)malloc(s.size() + 1);
-  std::memcpy(ret, s.c_str(), s.size() + 1);
+  char* ret = (char*)malloc(out.size() + 1);
+  std::memcpy(ret, out.c_str(), out.size() + 1);
   return ret;
 }
 

@@ -6,15 +6,13 @@ Three different full-suite runs segfaulted inside XLA:CPU's native
 ~30-45 min into a long-lived pytest process (faulthandler-pinned twice,
 round 4; private compilation-cache dirs did NOT prevent it) — while
 every case passes clean in a fresh process, every time. The mesh
-compiles therefore run here, one fresh process per case; see
-PERFORMANCE.md "Crash mechanisms".
+compiles therefore run here, one fresh process per case.
 """
 
 import os
 import sys
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ["JAX_PLATFORM_NAME"] = "cpu"
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
@@ -77,47 +75,59 @@ def case_sharded_matches_unsharded():
     assert out1 == out2
 
 
-def _mxu_case(pset):
-    nl = read_verilog_file("benchmarks/netlists/2-bit-adder.v")
-    inputs = {
-        "a[0]": True, "a[1]": False, "b[0]": True, "b[1]": True,
-        "cin": False,
-    }
-    e1 = BooleanEngine(mode="gates", params=pset, seed=13, backend="mxu")
-    e1.compile(nl)
-    out1 = e1.decrypt_outputs(e1.evaluate(e1.encrypt_inputs(inputs)))
-    e2 = BooleanEngine(mode="gates", params=pset, seed=13, backend="mxu")
-    shard_engine(e2, 4)
-    e2.compile(nl)
-    out2 = e2.decrypt_outputs(e2.evaluate(e2.encrypt_inputs(inputs)))
-    assert out1 == out2
-
-
-def case_sharded_mxu_single_bit():
-    _mxu_case(P.TEST_PARAMS)
-
-
-def case_sharded_mxu_multi_bit():
-    _mxu_case(P.TEST_PARAMS_MB)
-
-
-def case_sharded_mxu_fused_levels():
-    nl = read_verilog_file("benchmarks/netlists/2-bit-adder.v")
-    inputs = {
-        "a[0]": False, "a[1]": True, "b[0]": True, "b[1]": False,
-        "cin": True,
-    }
-    e1 = BooleanEngine(mode="gates", params=P.TEST_PARAMS_MB, seed=5)
+def _sharded_vs_single(mode, pset, netlist, n_dev, fuse_levels=None):
+    nl = read_verilog_file(netlist)
+    rng = np.random.default_rng(13)
+    inputs = {w: bool(rng.integers(0, 2)) for w in sorted(nl.inputs)}
+    e1 = BooleanEngine(mode=mode, params=pset, seed=13)
     e1.compile(nl)
     out1 = e1.decrypt_outputs(e1.evaluate(e1.encrypt_inputs(inputs)))
     e2 = BooleanEngine(
-        mode="gates", params=P.TEST_PARAMS_MB, seed=5, backend="mxu",
-        fuse_levels=True,
+        mode=mode, params=pset, seed=13, fuse_levels=fuse_levels
     )
-    shard_engine(e2, 8)
+    shard_engine(e2, n_dev)
     e2.compile(nl)
     out2 = e2.decrypt_outputs(e2.evaluate(e2.encrypt_inputs(inputs)))
     assert out1 == out2
+    c = Circuit.from_netlist(read_verilog_file(netlist))
+    exp = c.evaluate(c.initialize_wire_map(nl.wire_set, inputs))
+    for w, v in out2.items():
+        assert v == (bool(exp[w]) if mode == "gates" else int(exp[w])), w
+
+
+def case_sharded_multibit_matches_unsharded():
+    _sharded_vs_single(
+        "gates", P.TEST_PARAMS_MB, "benchmarks/netlists/2-bit-adder.v", 4
+    )
+
+
+def case_sharded_lut_matches_unsharded():
+    _sharded_vs_single(
+        "lut", P.TEST_PARAMS_LUT_MB,
+        "benchmarks/netlists/8-bit-adder-lut-3-1.v", 4,
+    )
+
+
+def case_sharded_fused_levels():
+    _sharded_vs_single(
+        "gates", P.TEST_PARAMS_MB, "benchmarks/netlists/2-bit-adder.v", 8,
+        fuse_levels=True,
+    )
+
+
+def case_chip_smoke_mesh_phase():
+    import tempfile
+
+    import chip_smoke
+
+    with tempfile.TemporaryDirectory() as d:
+        keys_dir = os.path.join(d, "keys")
+        keys = chip_smoke.make_keys(keys_dir, [P.TEST_PARAMS], 5)
+        res = chip_smoke.phase_mesh(
+            keys[P.TEST_PARAMS.name], keys_dir, d, seed=5, n_dev=4,
+            batch=4, extra=["--test-params"],
+        )
+    assert res["mesh_s"] > 0 and res["single_s"] > 0
 
 
 def case_sharded_arith_matches_oracle():

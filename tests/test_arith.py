@@ -52,9 +52,8 @@ def test_radix_primitives(engine_u8):
 
 def test_bootstrap_multi_width_cap(engine_u8, monkeypatch):
     """Oversized merged launches split into capped sub-launches that are
-    bit-identical to the single launch (the arith analog of the fused-
-    scan dispatch bound — mmult15 crashed the TPU worker compiling one
-    giant launch; PERFORMANCE.md crash mechanisms)."""
+    bit-identical to the single launch (HELM_TPU_MAX_G, the arith analog
+    of the fused-scan dispatch bound)."""
     from helm_tpu.engines import radix
 
     e = engine_u8
@@ -292,37 +291,6 @@ def test_euclidean_and_mmult_u8():
         exp = c.evaluate_arith(c.initialize_wire_map(nl.wire_set, inputs, default=0), 8)
         for w in outs:
             assert out[w] == exp[w], (path, w)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize(
-    "pset",
-    [P.TEST_PARAMS_ARITH, P.TEST_PARAMS_ARITH_MB],
-    ids=["single-bit", "multi-bit-fs"],
-)
-def test_chi_squared_mxu_backend(pset):
-    """Arith mode on the fused MXU kernels (interpret on CPU): grouping 1
-    rides the gate-major kernel, grouping 2 the frequency-in-sublanes one —
-    the production ARITH_TPU_MB2 path at tiny sizes."""
-    from helm_tpu.engines import radix
-
-    radix.BACKEND[0] = "mxu"
-    try:
-        nl = read_verilog_file("benchmarks/netlists/chi_squared_arith.v", True)
-        e = ArithEngine("u8", params=pset, seed=6)
-        e.compile(nl)
-        c = Circuit.from_netlist(
-            read_verilog_file("benchmarks/netlists/chi_squared_arith.v", True)
-        )
-        inputs = {"n0": 2, "n1": 7, "n2": 9}
-        exp = c.evaluate_arith(
-            c.initialize_wire_map(nl.wire_set, inputs, default=0), 8
-        )
-        out = e.decrypt_outputs(e.evaluate(e.encrypt_inputs(inputs)))
-        for w in ("alpha", "beta1", "beta2", "beta3"):
-            assert out[w] == exp[w], w
-    finally:
-        radix.BACKEND[0] = "jnp"
 
 
 def test_gaussian_blur_u8():

@@ -461,39 +461,39 @@ def test_aes128_one_round_encrypted():
     assert _aes_ct_bytes(out) == aes_encrypt(_FIPS_PT, _FIPS_KEY, rounds=1)
 
 
-def test_engine_mxu_backend_two_bit_adder():
-    """BooleanEngine with the fused MXU kernel backend (interpret on CPU),
-    including the multi-bit variant via grouped params."""
+@pytest.mark.parametrize(
+    "params", [P.TEST_PARAMS, P.TEST_PARAMS_MB], ids=["single-bit", "mb2"]
+)
+def test_engine_two_bit_adder_all_wires(params):
+    """BooleanEngine on the single- and multi-bit PBS, every wire."""
     nl = read_verilog_file("benchmarks/netlists/2-bit-adder.v")
     inputs = csv_io.read_input_wires(
         "benchmarks/test-cases/2-bit-adder.inputs.csv", "bool"
     )
     exp = _oracle(nl, inputs)
-    for params in (P.TEST_PARAMS, P.TEST_PARAMS_MB):
-        e = BooleanEngine(mode="gates", params=params, seed=97, backend="mxu")
-        e.compile(nl)
-        got = e.decrypt_all_wires(e.evaluate(e.encrypt_inputs(inputs)))
-        for w, v in exp.items():
-            assert got[w] == v, (params.name, w)
+    e = BooleanEngine(mode="gates", params=params, seed=97)
+    e.compile(nl)
+    got = e.decrypt_all_wires(e.evaluate(e.encrypt_inputs(inputs)))
+    for w, v in exp.items():
+        assert got[w] == v, (params.name, w)
 
 
-def test_radix_mxu_backend_add_mul():
-    """RadixOps routed through the MXU kernel backend (interpret on CPU)."""
+@pytest.mark.parametrize(
+    "params", [P.TEST_PARAMS_ARITH, P.TEST_PARAMS_ARITH_MB],
+    ids=["single-bit", "mb2"],
+)
+def test_radix_add_mul(params):
+    """RadixOps add and mul on the single- and multi-bit PBS."""
     import jax.numpy as jnp
 
-    from helm_tpu.engines import radix
     from helm_tpu.engines.arith import ArithEngine
 
-    e = ArithEngine("u8", params=P.TEST_PARAMS_ARITH, seed=41)
+    e = ArithEngine("u8", params=params, seed=41)
     xs, ys = [19, 200], [7, 99]
     x = jnp.asarray(np.stack([e._encrypt_value(v) for v in xs]))
     y = jnp.asarray(np.stack([e._encrypt_value(v) for v in ys]))
-    radix.BACKEND[0] = "mxu"
-    try:
-        add = e.ops.add(x, y)
-        mul = e.ops.mul(x, y)
-    finally:
-        radix.BACKEND[0] = "jnp"
+    add = e.ops.add(x, y)
+    mul = e.ops.mul(x, y)
     for i in range(len(xs)):
         assert e._decrypt_value(np.asarray(add[i])) == (xs[i] + ys[i]) % 256
         assert e._decrypt_value(np.asarray(mul[i])) == (xs[i] * ys[i]) % 256
@@ -577,20 +577,23 @@ def test_evaluate_cycles_matches_per_cycle():
             assert out[w] == bool(wm[w]), w
 
 
-def test_engine_mxu_backend_lut_mode():
-    """LUT mode on the MXU kernels: per-slot test polynomials flow through
-    the fused kernel (testv [S, N]), single- and multi-bit variants."""
+@pytest.mark.parametrize(
+    "params", [P.TEST_PARAMS_LUT, P.TEST_PARAMS_LUT_MB],
+    ids=["single-bit", "mb2"],
+)
+def test_engine_lut_mode_per_slot_test_polys(params):
+    """LUT mode: per-slot test polynomials (testv [S, N]) flow through
+    the batched PBS, single- and multi-bit."""
     nl = read_verilog_file("benchmarks/netlists/8-bit-adder-lut-3-1.v")
     rng = np.random.default_rng(23)
     inputs = {w: bool(rng.integers(0, 2)) for w in nl.inputs}
     c = Circuit.from_netlist(nl)
     exp = c.evaluate(c.initialize_wire_map(nl.wire_set, inputs))
-    for params in (P.TEST_PARAMS_LUT, P.TEST_PARAMS_LUT_MB):
-        e = BooleanEngine(mode="lut", params=params, seed=29, backend="mxu")
-        e.compile(nl)
-        got = e.decrypt_outputs(e.evaluate(e.encrypt_inputs(inputs)))
-        for w in got:
-            assert got[w] == int(exp[w]), (params.name, w)
+    e = BooleanEngine(mode="lut", params=params, seed=29)
+    e.compile(nl)
+    got = e.decrypt_outputs(e.evaluate(e.encrypt_inputs(inputs)))
+    for w in got:
+        assert got[w] == int(exp[w]), (params.name, w)
 
 
 def test_batched_serving_shape():
@@ -601,15 +604,14 @@ def test_batched_serving_shape():
     batches = [
         {w: bool(rng.integers(0, 2)) for w in nl.inputs} for _ in range(3)
     ]
-    for backend in ("jnp", "mxu"):
-        params = P.TEST_PARAMS if backend == "jnp" else P.TEST_PARAMS_MB
-        e = BooleanEngine(mode="gates", params=params, seed=61, backend=backend)
+    for params in (P.TEST_PARAMS, P.TEST_PARAMS_MB):
+        e = BooleanEngine(mode="gates", params=params, seed=61)
         e.compile(nl)
         outs = e.decrypt_outputs(e.evaluate(e.encrypt_inputs(batches)))
         assert isinstance(outs, list) and len(outs) == 3
         for i, inp in enumerate(batches):
             single = e.decrypt_outputs(e.evaluate(e.encrypt_inputs(inp)))
-            assert outs[i] == single, (backend, i)
+            assert outs[i] == single, (params.name, i)
 
 
 def test_batched_lut_mode():
@@ -743,8 +745,8 @@ def test_fuse_levels_auto_heuristic():
 def test_chunked_fusion_deep_chain(tmp_path):
     """>128 levels: the fused path must split into equal-length scan
     chunks (tail padded with no-op levels) and still match the oracle.
-    Guards the AES-358-level regression (a single giant scan crashed the
-    TPU worker; chunks of <=128 share one compiled executable)."""
+    Chunks of <= HELM_TPU_MAXC (128) levels share one compiled
+    executable."""
     depth = 300
     lines = ["module chain(a, b, out);", "input a, b;", "output out;"]
     lines += [f"wire w{i};" for i in range(depth)]
@@ -776,3 +778,65 @@ def test_chunked_fusion_deep_chain(tmp_path):
     got = e.decrypt_all_wires(e.evaluate(e.encrypt_inputs(inputs)))
     for w, v in exp.items():
         assert got[w] == v, w
+
+
+def _fused_adder_engine():
+    e = BooleanEngine(
+        mode="gates", params=P.TEST_PARAMS, seed=3, fuse_levels=True
+    )
+    e.compile(read_verilog_file("benchmarks/netlists/2-bit-adder.v"))
+    return e
+
+
+def test_dispatch_bound_auto_clamp(monkeypatch):
+    """Chunk length derives from BOTH per-dispatch caps: the 128-level
+    scan cap and chunk_levels x batch x slot width <= 184320 — so wide
+    batches get shorter scans automatically."""
+    e = _fused_adder_engine()  # S=4 slots per level
+    assert e._max_chunk_levels(1) == 128  # length cap binds
+    # batch 4096: 16384 slots per level -> 184320//16384 = 11 levels max
+    assert e._max_chunk_levels(4096) == 11
+    monkeypatch.setenv("HELM_TPU_DISPATCH_LANES", "32768")
+    assert e._max_chunk_levels(4096) == 2
+    monkeypatch.setenv("HELM_TPU_MAXC", "64")
+    assert e._max_chunk_levels(1) == 64
+    monkeypatch.delenv("HELM_TPU_DISPATCH_LANES")
+    monkeypatch.delenv("HELM_TPU_MAXC")
+    # chunking respects the clamp and pads the tail with no-op levels
+    e._chunk_cache.clear()
+    chunks = e._chunks_for_batch(4096)
+    assert all(c["slot_in"].shape[0] <= 12 for c in chunks)
+    assert sum(c["slot_in"].shape[0] for c in chunks) >= len(e.plan.levels)
+
+
+def test_batch_chunking_matches_unfused(monkeypatch):
+    """Batch-dependent chunk splits are semantically invisible: a batch-3
+    fused evaluation forced into multiple tiny scan chunks decrypts to
+    the same outputs as the unfused engine."""
+    nl = read_verilog_file("benchmarks/netlists/2-bit-adder.v")
+    rng = np.random.default_rng(5)
+    batch = [
+        {w: bool(rng.integers(0, 2)) for w in nl.inputs} for _ in range(3)
+    ]
+    e1 = BooleanEngine(
+        mode="gates", params=P.TEST_PARAMS, seed=9, fuse_levels=False
+    )
+    e1.compile(nl)
+    out1 = e1.decrypt_outputs(e1.evaluate(e1.encrypt_inputs(batch)))
+    monkeypatch.setenv("HELM_TPU_DISPATCH_LANES", "24")  # -> 2-level chunks
+    e2 = BooleanEngine(
+        mode="gates", params=P.TEST_PARAMS, seed=9, fuse_levels=True
+    )
+    e2.compile(nl)
+    assert e2._max_chunk_levels(3) == 2
+    out2 = e2.decrypt_outputs(e2.evaluate(e2.encrypt_inputs(batch)))
+    assert out1 == out2
+
+
+def test_real_slots_count_gate_work():
+    """Plan levels count real PBS slots apart from pow2 padding."""
+    e = BooleanEngine(mode="gates", params=P.TEST_PARAMS, seed=3)
+    e.compile(read_verilog_file("benchmarks/netlists/2-bit-adder.v"))
+    lps = e.plan.levels
+    assert all(lp.real_slots <= lp.num_slots for lp in lps)
+    assert sum(lp.real_slots for lp in lps) == 10  # 2-bit adder gates

@@ -50,10 +50,8 @@ def test_multibit_gate_truth_tables(mb_keys):
 def test_k3_glwe_bootstrap_jnp_and_mxu():
     """GLWE dimension k=3 (the GATES_128_K3 production shape, tfhe-rs 0.4
     boolean DEFAULT_PARAMETERS-like — reference L0 via Cargo.toml:18):
-    the jnp pipeline bootstraps correctly and the fs MXU kernel is
-    bit-identical (interpret mode)."""
-    from helm_tpu.ops.mxu_pbs import bootstrap_mxu
-
+    the jnp pipeline's AND and XOR bootstraps decrypt to the plaintext
+    oracle on every input combination."""
     p = P.TEST_PARAMS_K3
     ck = lwe.keygen(p, seed=31)
     dsk = pbs_jnp.DeviceServerKey.from_host(server_key.gen_server_key(ck))
@@ -74,22 +72,18 @@ def test_k3_glwe_bootstrap_jnp_and_mxu():
         out = np.asarray(jax.jit(pbs_jnp.bootstrap)(dsk, lin, testv))
         got = list(lwe.decode_bool(lwe.decrypt_phase(ck, out)))
         assert got == exp, name
-        out_mxu = np.asarray(bootstrap_mxu(dsk, lin, testv, interpret=True))
-        assert (out_mxu == out).all(), name
 
 
 def test_approximate_mask_gadget():
     """Approximate gadget decomposition (mask components on a wider,
     shallower gadget — the original TFHE paper's trick; see params.py):
-    correct through the jnp pipeline and bit-identical on the MXU kernel,
-    at k=3 and k=1, including (k=1) base-2^15 digits that exceed the
+    correct through the jnp pipeline at k=3 and k=1, including (k=1)
+    base-2^15 digits that exceed the
     smallest NTT prime (the _digit_residues full-reduction path). Mask
     bases are the widest that fit the PRIMES_512 convolution bound
     (TfheParams.conv_bound; base-2^16 needs the old >=2^59 prime
     product)."""
     from dataclasses import replace
-
-    from helm_tpu.ops.mxu_pbs import bootstrap_mxu
 
     q8 = 1 << 29
     combos = [(a, b) for a in (False, True) for b in (False, True)]
@@ -109,8 +103,6 @@ def test_approximate_mask_gadget():
         out = np.asarray(jax.jit(pbs_jnp.bootstrap)(dsk, lin, testv))
         got = list(lwe.decode_bool(lwe.decrypt_phase(ck, out)))
         assert got == [a and b for a, b in combos], p.name
-        out_mxu = np.asarray(bootstrap_mxu(dsk, lin, testv, interpret=True))
-        assert (out_mxu == out).all(), p.name
 
 
 @pytest.mark.slow

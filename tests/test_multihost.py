@@ -1,11 +1,11 @@
 """True multi-process (multi-host-shaped) evaluation.
 
-The reference is single-host shared-memory only (rayon; SURVEY.md §2); the
-TPU build scales across hosts with one JAX process per host over
-jax.distributed (parallel/distributed.py). Real DCN needs real hosts, but
-the multi-controller runtime itself is fully exercisable on CPU: two OS
-processes, 4 virtual devices each, gloo collectives — the same program
-that runs on a pod slice. This is the runtime counterpart of the
+The reference is single-host shared-memory only (rayon; SURVEY.md §2);
+this build scales across hosts with one JAX process per host over
+jax.distributed (parallel/distributed.py). A real cluster needs real
+hosts, but the multi-controller runtime itself is fully exercisable on
+CPU: two OS processes, 4 virtual devices each, gloo collectives — the
+same program that runs across GPU hosts. This is the runtime counterpart of the
 single-process virtual-mesh tests in test_sharding.py.
 """
 

@@ -79,7 +79,7 @@ def test_floor_never_exceeds_core_bound():
 
 
 def test_aes_profile_matches_recorded_shape():
-    # PERFORMANCE.md: aes128-gates = 358 levels, ~40.6k bootstraps
+    # aes128-gates: 358 levels, ~40.6k bootstraps
     rb = bounds_for_netlist("benchmarks/netlists/aes128-gates.v")
     assert rb["pbs_levels"] == 358
     assert 40_000 <= rb["bootstraps"] <= 41_000

@@ -7,7 +7,7 @@ when they executed ~30-45 min into a long-lived pytest process
 (faulthandler-pinned, round 4; a private compilation-cache dir did not
 prevent it), while every case passes clean in a fresh process every
 time. Subprocess isolation keeps the coverage and removes the
-suite-killing crash; see PERFORMANCE.md "Crash mechanisms".
+suite-killing crash.
 """
 
 import os
@@ -50,18 +50,25 @@ def test_sharded_matches_unsharded():
 
 @pytest.mark.parametrize(
     "case",
-    ["sharded_mxu_single_bit", "sharded_mxu_multi_bit"],
-    ids=["single-bit", "multi-bit"],
+    ["sharded_multibit_matches_unsharded", "sharded_lut_matches_unsharded"],
+    ids=["multi-bit", "lut"],
 )
-def test_sharded_mxu_kernel_matches_unsharded(case):
-    """Fused-kernel gate sharding: shard_map runs one Pallas kernel per
-    device on its slice of the PBS batch (keys replicated)."""
+def test_sharded_geometry_matches_unsharded(case):
+    """Gate sharding over 4 devices: the multi-bit blind rotation and
+    the LUT mode's per-slot test polynomials."""
     _run_case(case)
 
 
-def test_sharded_mxu_fused_levels():
-    """Sharded kernel + whole-circuit lax.scan fusion in one program."""
-    _run_case("sharded_mxu_fused_levels")
+def test_sharded_fused_levels():
+    """Sharded PBS + whole-circuit lax.scan fusion in one program."""
+    _run_case("sharded_fused_levels")
+
+
+def test_chip_smoke_mesh_phase():
+    """chip_smoke.py's --four-cards phase at test parameters on 4 virtual
+    devices: mesh and single-device CLI runs against the oracle and
+    against each other."""
+    _run_case("chip_smoke_mesh_phase")
 
 
 def test_sharded_arith_matches_oracle():

@@ -1,9 +1,9 @@
-"""One-stop gates/LUT family benchmark on the real chip (RUNNING.md matrix).
+"""One-stop gates/LUT family benchmark (RUNNING.md matrix).
 
-Covers what c880_tpu_bench does plus LUT mode and multi-cycle sequential
-circuits, and prints a machine-parseable RESULT json line for the
-measurement matrix (PERFORMANCE.md). Matches the reference's published
-family surface (reference RUNNING.md:3-259).
+Times gates and LUT mode, single vectors, batches and multi-cycle
+sequential circuits, and prints a machine-parseable RESULT json line per
+job. Matches the reference's published family surface (reference
+RUNNING.md:3-259).
 
 Env:
   NETLIST  path (default benchmarks/netlists/c880-like.v)
@@ -13,8 +13,6 @@ Env:
            sweep). Overrides NETLIST/BATCH/CYCLES.
   MODE     gates|lut (default gates)
   PSET     params name (default GATES_128_K3 / LUT_128_K2 by mode)
-  BACKEND  jnp|mxu (default mxu)
-  GT       g_tile override
   FUSE     1/0 level fusion (unset = auto)
   BATCH    vectors per serving pass (0 = single vector, latency shape)
   CYCLES   sequential cycles (default 1)
@@ -36,6 +34,7 @@ import numpy as np
 from helm_tpu import params as P
 from helm_tpu.circuit.graph import Circuit
 from helm_tpu.circuit.verilog import read_verilog_file
+from helm_tpu.device import describe
 from helm_tpu.engines.boolean import BooleanEngine
 
 mode = os.environ.get("MODE", "gates")
@@ -43,8 +42,6 @@ pset = getattr(
     P,
     os.environ.get("PSET", "GATES_128_K3" if mode == "gates" else "LUT_128_K2"),
 )
-backend = os.environ.get("BACKEND", "mxu")
-gt_env = os.environ.get("GT", "")
 fuse_env = os.environ.get("FUSE", "")
 
 if os.environ.get("NETLISTS", ""):
@@ -72,8 +69,6 @@ e = BooleanEngine(
     mode=mode,
     params=pset,
     seed=3,
-    backend=backend,
-    g_tile=int(gt_env) if gt_env else None,
     fuse_levels=bool(int(fuse_env)) if fuse_env else None,
 )
 print(f"KeyGen {time.time()-t0:.1f}s", flush=True)
@@ -154,28 +149,22 @@ for path, B, cycles in jobs:
     )
     pv = dt / (B or 1)
 
-    # serving-model prediction at this batch (helm_tpu/batching.py) so the
-    # measurement can be checked against the model in one place
-    from helm_tpu.batching import predicted_cost_per_vector
-
-    pred_lanes, pred_fill = predicted_cost_per_vector(e, B or 1)
-
     name = pathlib.Path(path).stem
     print(
         f"{name} steady-state: {dt:.3f}s"
         + (f" ({dt/B:.3f}s/vector, batch {B})" if B else "")
         + (f" cycles={cycles} per-cycle={[round(t,3) for t in cyc_t]}" if cycles > 1 else "")
-        + f" [{pset.name}, {mode}, backend={backend}] correct={ok}",
+        + f" [{pset.name}, {mode}] correct={ok}",
         flush=True,
     )
     print(
         "RESULT "
         + json.dumps(
             {
+                "device": describe(),
                 "family": name,
                 "mode": mode,
                 "params": pset.name,
-                "backend": backend,
                 "batch": B,
                 "cycles": cycles,
                 "cycfuse": cycfuse,
@@ -186,7 +175,7 @@ for path, B, cycles in jobs:
                 "correct": ok,
                 # reference bounds: per-vector measured vs (a) the
                 # infinite-core critical-path floor and (b) the C-core
-                # perfect-scaling bound; ratios >1 mean the chip beats
+                # perfect-scaling bound; ratios >1 mean this device beats
                 # that reference machine on per-vector wall-clock
                 "ref_infinite_core_floor_s": rb["infinite_core_floor_s"],
                 "ref_core_bound_s": rb["core_bound_s"],
@@ -194,8 +183,6 @@ for path, B, cycles in jobs:
                 "ref_bootstraps": rb["bootstraps"],
                 "vs_ref_floor": round(rb["infinite_core_floor_s"] / pv, 3),
                 "vs_ref_cores": round(rb["core_bound_s"] / pv, 3),
-                "pred_lanes_per_vector": round(pred_lanes, 1),
-                "pred_fill": round(pred_fill, 3),
             }
         ),
         flush=True,

@@ -11,11 +11,12 @@ and keyswitch (lwe.decrypt_phase(big=True)), giving
     (variance of the post-KS error minus the pre-KS error, i.e. the
     exact additive KS noise realization per sample)
 
-Runs the jnp reference pipeline (bit-identical to the MXU kernels per
-tests/test_mxu.py) so it works on CPU while the chip is busy.
+Runs the jnp pipeline on JAX's default device (JAX_PLATFORMS=cpu for
+the CPU); the noise statistics are exact integer results, the same on
+every device.
 
 Env: PSET (default GATES_128_K3), SAMPLES (default 8192), G (default
-2048), SEED. Uses the /tmp key cache shared with noise_validate.
+2048), SEED. Keys are kept in <repo>/.keys, shared with noise_validate.
 """
 import json
 import math
@@ -27,38 +28,21 @@ import time
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import jax
-
-if os.environ.get("BACKEND", "cpu") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 import jax.numpy as jnp
 
 from helm_tpu import params as P
-from helm_tpu.fhe import keys as K, lwe, ops, pbs_jnp, server_key
+from helm_tpu.fhe import lwe, ops, pbs_jnp
+from helm_tpu.fhe.keys import load_or_generate
 
 p = getattr(P, os.environ.get("PSET", "GATES_128_K3"))
 SAMPLES = int(os.environ.get("SAMPLES", "8192"))
 G = int(os.environ.get("G", "2048"))
 seed = int(os.environ.get("SEED", "7"))
 
-ck_path = f"/tmp/ck_{p.name}.npz"
-sk_path = f"/tmp/sk_{p.name}.npz"
-ck = sk = None
-if os.path.exists(sk_path):
-    try:
-        ck = K.load_client_key(ck_path)
-        sk = K.load_server_key(sk_path)
-        print("keys loaded", flush=True)
-    except ValueError as e:
-        print(f"key cache invalid ({e})", flush=True)
-if sk is None:
-    ck = lwe.keygen(p, seed=seed)
-    sk = server_key.gen_server_key(ck)
-    K.save_client_key(ck_path, ck)
-    K.save_server_key(sk_path, sk)
-    print("keys generated+saved", flush=True)
-
+ck, sk = load_or_generate(
+    str(pathlib.Path(__file__).resolve().parents[1] / ".keys"), p, seed
+)
 dsk = pbs_jnp.DeviceServerKey.from_host(sk)
 
 

@@ -1,4 +1,4 @@
-"""Empirical PBS noise validation at a production set, on the real chip.
+"""Empirical PBS noise validation at a production set.
 
 Measures the post-bootstrap phase-error distribution over SAMPLES
 (default 2^20) gate bootstraps at PSET (default GATES_128_K3, the
@@ -11,8 +11,10 @@ pbs_failure_log2 claim in SECURITY.md:
     GATES_128_K3 modelled rate of 2^-37 per bootstrap)
 
 The pipeline is the production gate path: fresh encrypt -> AND linear
-combo -> MXU bootstrap (blind rotate + sample extract + keyswitch) ->
-host decrypt_phase. Keys are cached in /tmp (same cache as mb_sweep).
+combo -> jitted pbs_jnp.bootstrap (blind rotate + sample extract +
+keyswitch) on JAX's default device -> host decrypt_phase. The noise
+statistics are exact integer results, the same on every device. Keys are
+kept in <repo>/.keys (fhe/keys.py load_or_generate).
 
 Env: PSET, SAMPLES, G (batch per pass, default 2048), SEED.
 Output: one RESULT json line for SECURITY.md.
@@ -30,42 +32,23 @@ from helm_tpu.compile_cache import enable_compile_cache
 enable_compile_cache()
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 from helm_tpu import params as P
-from helm_tpu.fhe import keys as K, lwe, pbs_jnp, server_key
+from helm_tpu.fhe import lwe, pbs_jnp
+from helm_tpu.fhe.keys import load_or_generate
 
 p = getattr(P, os.environ.get("PSET", "GATES_128_K3"))
 SAMPLES = int(os.environ.get("SAMPLES", str(1 << 20)))
 G = int(os.environ.get("G", "2048"))
 seed = int(os.environ.get("SEED", "7"))
 
-ck_path = f"/tmp/ck_{p.name}.npz"
-sk_path = f"/tmp/sk_{p.name}.npz"
-ck = sk = None
-if os.path.exists(sk_path):
-    try:
-        ck = K.load_client_key(ck_path)
-        sk = K.load_server_key(sk_path)
-        print("keys loaded", flush=True)
-    except ValueError as e:
-        print(f"key cache invalid ({e})", flush=True)
-if sk is None:
-    ck = lwe.keygen(p, seed=seed)
-    sk = server_key.gen_server_key(ck)
-    K.save_client_key(ck_path, ck)
-    K.save_server_key(sk_path, sk)
-    print("keys generated+saved", flush=True)
-
-backend = os.environ.get("BACKEND", "mxu")  # mxu | jnp (jnp: CPU smoke)
-if backend == "mxu":
-    dsk = pbs_jnp.DeviceServerKey.from_host(sk).with_mxu_keys()
-    from helm_tpu.ops.mxu_pbs import bootstrap_mxu_aot
-else:
-    import jax
-
-    dsk = pbs_jnp.DeviceServerKey.from_host(sk)
-    bootstrap_mxu_aot = jax.jit(pbs_jnp.bootstrap)
+ck, sk = load_or_generate(
+    str(pathlib.Path(__file__).resolve().parents[1] / ".keys"), p, seed
+)
+dsk = pbs_jnp.DeviceServerKey.from_host(sk)
+bootstrap = jax.jit(pbs_jnp.bootstrap)
 
 tv = jnp.asarray(pbs_jnp.gates_test_poly(p))
 rng = np.random.default_rng(seed)
@@ -88,7 +71,7 @@ for bi in range(n_batches):
         + lwe.encrypt(ck, lwe.encode_bool(b2))
     ).astype(np.uint32)
     lin[:, p.n] += np.uint32((-(1 << 29)) % (1 << 32))
-    out = np.asarray(bootstrap_mxu_aot(dsk, jnp.asarray(lin), tv))
+    out = np.asarray(bootstrap(dsk, jnp.asarray(lin), tv))
     ph = lwe.decrypt_phase(ck, out).astype(np.int64)
     exp = np.where(b1 & b2, 1 << 29, (-(1 << 29)) % (1 << 32)).astype(
         np.int64

@@ -17,7 +17,7 @@ truth tables and the reference's semantics); the real hdl-benchmarks
 vectors are not vendored upstream either (git submodule, not checked out).
 
 Usage:
-  python tools/verify_baseline.py              # TPU, 128-bit params
+  python tools/verify_baseline.py              # default device, 128-bit params
   python tools/verify_baseline.py --fast       # CPU, noise-free test params
   python tools/verify_baseline.py --only c880  # one config
 
@@ -59,9 +59,6 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--fast", action="store_true", help="CPU + test params")
     ap.add_argument("--only", default="", help="substring filter")
-    ap.add_argument(
-        "--backend", default=None, help="gates/lut PBS backend (default: mxu, jnp with --fast)"
-    )
     args = ap.parse_args()
     if args.fast:
         import jax
@@ -74,7 +71,6 @@ def main() -> int:
     from helm_tpu.engines.boolean import BooleanEngine
     from helm_tpu.io import csv_io
 
-    backend = args.backend or ("jnp" if args.fast else "mxu")
     gates_p = P.TEST_PARAMS if args.fast else P.GATES_128_K3
     lut_p = P.TEST_PARAMS_LUT if args.fast else P.LUT_128_MB2
     arith_p = P.TEST_PARAMS_ARITH if args.fast else P.ARITH_128_MB2
@@ -88,7 +84,7 @@ def main() -> int:
             return
         t0 = time.time()
         nl = read_verilog_file(netlist)
-        eng = BooleanEngine(mode=mode, params=params, seed=5, backend=backend)
+        eng = BooleanEngine(mode=mode, params=params, seed=5)
         eng.compile(nl)
         ins = csv_io.read_input_wires(inputs_csv, "bool")
         wires = eng.encrypt_inputs(ins)
@@ -96,7 +92,7 @@ def main() -> int:
             wires = eng.evaluate(wires)
         out = eng.decrypt_outputs(wires)
         ok &= check(name, out, golden_csv, "bool")
-        print(f"    ({params.name}, {backend}, {time.time()-t0:.1f}s)")
+        print(f"    ({params.name}, {time.time()-t0:.1f}s)")
 
     gates_cfg(
         "2-bit-adder (gates)", f"{nlp}/2-bit-adder.v",
